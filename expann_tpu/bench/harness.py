@@ -6,8 +6,8 @@ computes recall as |ans intersect GT| / (m * k), asserts no duplicate
 results ("Duplicates detected, engine is buggy", :98-104), and records
 average (squared) distance of each top-1 answer.
 
-One deliberate difference: queries run *batched* (the whole point of the TPU
-design), so time_per_query_ns is amortized wall-clock over the query set —
+One deliberate difference: queries run *batched* (the whole point of the
+accelerator design), so time_per_query_ns is amortized wall-clock over the query set —
 the same definition the reference uses (total loop time / m, :131-135), just
 with a throughput-oriented engine underneath.
 """

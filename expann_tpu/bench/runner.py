@@ -5,7 +5,7 @@ src/bench_runner.h:124-180): builds the canonical job grid over engine
 params and runs each job, collecting results into a BenchDataManager.  The
 reference's std::jthread pool with atomic job claiming (:15-58,77-87) was
 host-side CPU parallelism over *independent single-threaded engines*; on a
-single-controller TPU the device is the bottleneck and is time-shared, so
+single accelerator the device is the bottleneck and is time-shared, so
 jobs run sequentially (num_threads is accepted for CLI parity).  Builds are
 reused across jobs that share all build-affecting params, mirroring the
 reference's index-file read/write scheme (:149-158).

@@ -4,7 +4,7 @@ Counterpart of the reference dataset_loader (reference:
 src/dataset_loader.h): synthetic N(0,1) vectors with brute-force ground
 truth cached to JSON keyed by (n, dim, m, k) (:10-95), and the fvecs/ivecs
 binary readers for SIFT1M (:96-182).  Ground truth here comes from the
-TPU brute-force engine (one matmul + top-k) instead of a scalar heap scan.
+device brute-force engine (one matmul + top-k) instead of a scalar heap scan.
 
 The fvecs/ivecs hot parser prefers the native C++ loader
 (native/expann_io.cpp via ctypes) and falls back to a numpy implementation.
@@ -77,11 +77,10 @@ def generate_synthetic_clustered(
     dimension of real ANN corpora (SIFT1M: ~15).  No reference counterpart
     (its synthetic generator is isotropic Gaussian,
     src/randomgeometry.h:73-96); isotropic Gaussian d=128 at N=1e6 is a
-    curse-of-dimensionality regime where every graph method degrades
-    (BENCH_NOTES million-row section).
+    curse-of-dimensionality regime where every graph method degrades.
 
-    Deliberately NOT flattering to graph search (round-2 VERDICT asked
-    for a harder stand-in than equal isotropic clusters):
+    Deliberately NOT flattering to graph search (a harder stand-in than
+    equal isotropic clusters):
 
       * cluster masses are Zipf-ish (``(rank + 3)^-0.6``) — some clusters
         hold ~30x the mass of others, like real corpora,
@@ -96,8 +95,7 @@ def generate_synthetic_clustered(
         a 10% slice is drawn from between-cluster interpolations (off-mode
         queries with no dominant basin).
 
-    ``uniform=True`` restores the round-2 equal-mass isotropic generator
-    (for reproducing earlier numbers)."""
+    ``uniform=True`` gives the equal-mass isotropic variant."""
     rng = np.random.default_rng(42 if seed is None else seed)
     centers = rng.standard_normal((n_clusters, d)).astype(np.float32)
     if uniform:
@@ -147,6 +145,40 @@ def generate_synthetic_clustered(
     ).astype(np.float32)
     queries = np.concatenate([q_main, q_between], axis=0)
     return vecs, queries
+
+
+def to_u8_box(
+    x: np.ndarray, lo_q: float = 0.001, hi_q: float = 0.999, bounds=None
+) -> tuple[np.ndarray, tuple]:
+    """Affine-map a float cloud into integer-valued [0, 255] (SIFT's value
+    regime: fvecs files of real SIFT hold u8 descriptors promoted to
+    float).  Returns (u8-valued f32 array, bounds) — pass the returned
+    bounds back in so queries share the corpus transform."""
+    if bounds is None:
+        # quantiles of a strided sample: exact enough for a clip range,
+        # and a full-corpus quantile would sort 128M values
+        flat = x.reshape(-1)
+        sample = flat[:: max(1, flat.size // 4_000_000)]
+        bounds = (
+            float(np.quantile(sample, lo_q)),
+            float(np.quantile(sample, hi_q)),
+        )
+    lo, hi = bounds
+    y = (x - lo) * (255.0 / max(hi - lo, 1e-9))
+    return np.clip(np.rint(y), 0, 255).astype(np.float32), bounds
+
+
+def generate_sift_like(
+    n: int, m: int, d: int = 128, seed: int = 7
+) -> tuple[np.ndarray, np.ndarray]:
+    """A SIFT1M-shaped corpus and query set (SIFT1M: n=1,000,000, m=10,000,
+    d=128, reference src/main.cpp:72-80): clustered geometry
+    (``generate_synthetic_clustered``) mapped into SIFT's u8-valued box,
+    queries through the corpus's own transform."""
+    x, q = generate_synthetic_clustered(n, m, d, seed=seed)
+    x, bounds = to_u8_box(x)
+    q, _ = to_u8_box(q, bounds=bounds)
+    return x, q
 
 
 def load_synthetic_uniform_sphere_points(

@@ -1,11 +1,11 @@
 """Uniform engine interface.
 
-TPU-native counterpart of the reference's CRTP ``ann_engine`` base
+Counterpart of the reference's CRTP ``ann_engine`` base
 (reference: src/ann_engine.h:16-29): every engine exposes ``name`` /
 ``param_list`` / ``store_vector`` / ``build`` / ``query_k``.  Because the new
 framework is batched-first, engines additionally expose
 ``store_many_vectors`` (bulk ingest, matching the pybind11 helper in
-reference src/pyrunner.cpp:60-82) and ``query_k_batch`` (the native TPU
+reference src/pyrunner.cpp:60-82) and ``query_k_batch`` (the native batched
 entry point; ``query_k`` is a convenience wrapper over a batch of one).
 """
 
@@ -70,8 +70,8 @@ class Engine:
     def query_k_batch(self, queries: np.ndarray, k: int) -> np.ndarray:
         """Batched k-NN: ``(B, D) -> (B, k)`` int array of ids.
 
-        The TPU-native hot path: queries are scored in large batches so the
-        MXU sees big contractions instead of one-at-a-time scalar loops.
+        The hot path: queries are scored in large batches so the device
+        sees big contractions instead of one-at-a-time scalar loops.
         """
         raise NotImplementedError
 

@@ -1,9 +1,9 @@
 """Device-resident layered graph index.
 
-TPU-native replacement for the reference's pointer-chasing adjacency
+Device-array replacement for the reference's pointer-chasing adjacency
 (reference: src/antitopo_engine.h:200-205 ``hadj_flat`` / ``hadj_bottom`` /
 ``hadj_flat_with_lengths``).  Everything is a dense, padded, fixed-shape
-device array so gathers and distance matmuls stay compiled-friendly:
+device array so gathers and distance matmuls compile to fixed shapes:
 
   * ``vectors``: ``(N + 1, D_pad)`` f32.  Row ``N`` is an all-zeros dummy row
     whose stored norm is ``+inf`` — any distance computed against it via
@@ -65,24 +65,6 @@ class GraphIndex:
     # affine quantization params (ranged-q8 mode); None => plain cast codes
     quant_scale: Optional[jax.Array] = None  # () f32
     quant_offset: Optional[jax.Array] = None  # () f32
-    # packed-neighbour serving layout (derived from adj_bottom on demand;
-    # never persisted — see ops/pallas_beam.py): (N+1, Rp, D_pad) vectors
-    # and (N+1, 2, Rp) norm/id aux rows, Rp = adj width padded to 128.
-    packed: Optional[jax.Array] = None
-    packed_aux: Optional[jax.Array] = None
-    # i8 packed serving (ops/pallas_beam.build_packed_i8): when ``packed``
-    # holds s8 codes, these carry the code corpus for entry-point scoring
-    # plus the affine query transform (centered, shared scale).
-    packed_codes: Optional[jax.Array] = None  # (N + 1, D_pad) int8
-    packed_code_norms: Optional[jax.Array] = None  # (N + 1,) f32, +inf sentinel
-    packed_center: Optional[jax.Array] = None  # (D_pad,) f32
-    packed_scale: Optional[jax.Array] = None  # () f32
-    # member ids of the largest upper layer (multi-seed dense entry scan,
-    # models/search.fused_query_batch); lane-padded with the sentinel
-    entry_members: Optional[jax.Array] = None  # (n_l_pad,) int32
-    # real (unpadded) member count — exact distcomp accounting for the
-    # dense entry scan (the padded sentinel lanes score no real vectors)
-    entry_members_n: Optional[jax.Array] = None  # () int32
 
     @property
     def n(self) -> int:
@@ -103,14 +85,6 @@ class GraphIndex:
             self.code_norms,
             self.quant_scale,
             self.quant_offset,
-            self.packed,
-            self.packed_aux,
-            self.packed_codes,
-            self.packed_code_norms,
-            self.packed_center,
-            self.packed_scale,
-            self.entry_members,
-            self.entry_members_n,
         )
         return children, None
 

@@ -1,6 +1,6 @@
 """Vectorized anti-topological edge pruning.
 
-TPU-native replacement for the reference's sequential greedy prune
+Batched replacement for the reference's sequential greedy prune
 (reference: src/antitopo_engine.h:262-308 ``prune_edges``).  The semantics,
 restated: given a candidate edge list sorted by (distance, id), greedily
 select up to ``cap`` edges; a candidate's score is its base distance plus an
@@ -11,7 +11,7 @@ does (``co_dist < d``), and a candidate is disqualified outright (score
 (the leniency counter at src/antitopo_engine.h:286-294).
 
 The redesign runs W nodes' prunes in lockstep: the pairwise candidate
-co-distance matrix ``(W, C, C)`` is one batched MXU matmul, and each of the
+co-distance matrix ``(W, C, C)`` is one batched matmul, and each of the
 ``cap`` selection steps is an argmin + masked penalty update over the whole
 ``(W, C)`` candidate block — no heaps, no hash sets, and the penalty is
 accumulated incrementally instead of being recomputed per scan.

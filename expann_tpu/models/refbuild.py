@@ -5,7 +5,7 @@ A from-scratch, readably-slow reimplementation of the reference algorithm's
 anti-topological pruning and two-heap beam search (reference:
 src/antitopo_engine.h:262-308 prune_edges, :310-465 _store_vector,
 :495-708 query_k_at_layer, :853-928 _query_k).  It exists to serve as the
-correctness oracle in tests: the batched TPU engine must match its recall
+correctness oracle in tests: the batched device engine must match its recall
 on small datasets, and the batched prune must reproduce its edge selections
 given identical candidate lists.  Only the canonical ``ortho_count=1``
 configuration is implemented (in that configuration the construction beam

@@ -1,6 +1,6 @@
 """Batched graph traversal: greedy upper-layer descent + bottom beam search.
 
-TPU-native replacement for the reference's sequential two-heap beam search
+Accelerator replacement for the reference's sequential two-heap beam search
 (reference: src/antitopo_engine.h:495-708 ``query_k_at_layer``, :710-851
 ``query_k_bottom_compressed``, :853-928 ``_query_k``).  The redesign:
 
@@ -13,7 +13,7 @@ TPU-native replacement for the reference's sequential two-heap beam search
     is replaced by duplicate-masking against the beam: a node currently in
     the beam is never re-added, and an evicted node can never re-enter
     because beams improve monotonically, so no infinite loops are possible;
-    occasional re-scoring of evicted nodes costs only MXU flops,
+    occasional re-scoring of evicted nodes costs only matmul flops,
   * per iteration each active query expands its best unexpanded beam entry:
     one adjacency-row gather, one vector-block gather, one batched matmul
     distance, one sorted merge (``lax.sort``) — no data-dependent shapes,
@@ -26,16 +26,13 @@ TPU-native replacement for the reference's sequential two-heap beam search
 from __future__ import annotations
 
 import functools
-import os
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 
 from expann_tpu.models.graph import GraphIndex
 from expann_tpu.ops.distance import batched_neighbour_dist2, squared_norms
-from expann_tpu.ops.pallas_beam import packed_score
-from expann_tpu.ops.pallas_fused import fused_search
 
 INF = jnp.inf
 
@@ -132,10 +129,6 @@ def beam_search(
     sentinel: int,
     precision: str = "highest",
     expand: int = 1,
-    packed: jax.Array | None = None,
-    packed_aux: jax.Array | None = None,
-    packed_topt: int = 0,
-    interpret: bool = False,
     ortho_chosen: jax.Array | None = None,
     ortho_valid: jax.Array | None = None,
     ortho_factor: float = 0.5,
@@ -150,13 +143,9 @@ def beam_search(
       q: ``(B, D)`` query block; qn: ``(B,)`` its squared norms.
       ep_ids: ``(B, E0)`` entry points.
       ef: beam width (the reference's ``ef_search`` / ``ef_construction``).
-      packed/packed_aux: optional packed-neighbour arrays
-        (ops/pallas_beam.py); when given, neighbour expansion runs through
-        the block-DMA Pallas kernel instead of XLA row gathers (~20x fewer
-        HBM row-fetch stalls), scoring against the packed (bf16) vectors.
       ortho_chosen/ortho_valid: optional (B, OC) previously-chosen entry
         points; when given, every candidate is scored with the reference's
-        construction-time ortho penalty (mutually exclusive with packed).
+        construction-time ortho penalty.
 
     Returns ``(beam_ids, beam_d, num_distcomps)`` with beams sorted by
     ascending distance; padding entries carry id ``sentinel`` and d ``+inf``.
@@ -165,10 +154,9 @@ def beam_search(
     src/antitopo_engine.h:125-128).
     """
     B, E0 = ep_ids.shape
-    R = packed.shape[1] if packed is not None else adj.shape[1]
+    R = adj.shape[1]
 
     if ortho_chosen is not None:
-        assert packed is None, "ortho scoring uses the XLA gather path"
         safe = jnp.minimum(ortho_chosen, sentinel)
         chosen_v = data[safe].astype(jnp.float32)  # (B, OC, D)
         chosen_n = data_norms[safe]
@@ -248,27 +236,12 @@ def beam_search(
         )
         beam_exp = beam_exp | (onehot & valid_sel[:, :, None]).any(axis=1)
 
-        if packed is not None:
-            raw_d, nbrs = packed_score(
-                packed, packed_aux, sel, q,
-                topt=packed_topt, interpret=interpret,
-            )  # (B, E*K): |x|^2 - 2 q.x, sentinel slots +inf / id sentinel
-            nd = raw_d + qn[:, None]
-            # distcomp semantics for the packed engine: the MXU really
-            # scores all R packed slots per expanded node (incl. adjacency
-            # padding), regardless of how many survive top-t extraction.
-            ncomp = ncomp + R * jnp.sum(
-                (sel != sentinel).astype(ncomp.dtype), axis=-1
-            )
-        else:
-            nbrs = adj[sel].reshape(B, E * R)  # sentinel rows: all-sentinel
-            nd = score(nbrs)
-            ncomp = ncomp + jnp.sum(nbrs != sentinel, axis=-1).astype(
-                ncomp.dtype
-            )
-        K = nbrs.shape[1]  # E*R, or E*topt in packed top-t mode
+        nbrs = adj[sel].reshape(B, E * R)  # sentinel rows: all-sentinel
+        nd = score(nbrs)
+        ncomp = ncomp + jnp.sum(nbrs != sentinel, axis=-1).astype(ncomp.dtype)
+        K = nbrs.shape[1]  # E*R
         dup = (nbrs[:, :, None] == beam_ids[:, None, :]).any(-1)
-        if E > 1 or K != R:
+        if E > 1:
             # dedup within the gathered block (two expanded vertices may
             # share a neighbour): keep only the first occurrence.
             same = nbrs[:, :, None] == nbrs[:, None, :]
@@ -318,9 +291,6 @@ def beam_search(
         "precision",
         "compressed",
         "expand",
-        "use_packed",
-        "packed_topt",
-        "interpret",
     ),
 )
 def query_batch(
@@ -332,9 +302,6 @@ def query_batch(
     precision: str = "highest",
     compressed: bool = False,
     expand: int = 1,
-    use_packed: bool = False,
-    packed_topt: int = 0,
-    interpret: bool = False,
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """Full batched query: descend upper layers greedily from the starting
     vertex, beam-search the bottom layer, return ``(ids, dists, distcomps)``
@@ -347,16 +314,6 @@ def query_batch(
     bottom beam; with ``compressed=True`` the beam scores uint8 codes with a
     floor()-truncated integer query (mirroring the uint32 cast at :726-737)
     and the final beam is exactly reranked in f32 (:845-848).
-
-    With ``use_packed=True`` (requires ``graph.packed``), the bottom beam
-    expands through the packed-neighbour Pallas kernel scoring bf16 blocks,
-    and — exactly like the compressed path — the final beam is reranked in
-    exact f32 before truncation to k.  ``compressed`` takes priority when
-    both are set.
-
-    The fully fused single-kernel traversal lives in ``fused_query_batch``
-    below (separate entry point: its ``ef`` is a runtime scalar so that
-    ef sweeps reuse one compile).
     """
     ef = max(ef, k)
     if max_iters <= 0:
@@ -421,31 +378,6 @@ def query_batch(
             graph.vectors, graph.norms, beam_ids, q, qn, precision
         )
         beam_d, beam_ids = jax.lax.sort((beam_d, beam_ids), num_keys=1)
-    elif use_packed:
-        assert graph.packed is not None, "index has no packed-neighbour arrays"
-        beam_ids, _, ncomp = beam_search(
-            graph.vectors,
-            graph.norms,
-            graph.adj_bottom,
-            q,
-            qn,
-            ep[:, None],
-            ef=ef,
-            max_iters=max_iters,
-            sentinel=sentinel,
-            precision=precision,
-            expand=expand,
-            packed=graph.packed,
-            packed_aux=graph.packed_aux,
-            packed_topt=packed_topt,
-            interpret=interpret,
-        )
-        # Exact f32 rerank of the final beam — the packed traversal ranked
-        # by bf16 block scores; same pattern as the compressed path.
-        beam_d = _gather_dist2(
-            graph.vectors, graph.norms, beam_ids, q, qn, precision
-        )
-        beam_d, beam_ids = jax.lax.sort((beam_d, beam_ids), num_keys=1)
     else:
         beam_ids, beam_d, ncomp = beam_search(
             graph.vectors,
@@ -460,186 +392,4 @@ def query_batch(
             precision=precision,
             expand=expand,
         )
-    return beam_ids[:, :k], beam_d[:, :k], ncomp
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "k",
-        "ef_cap",
-        "expand",
-        "cand",
-        "qt",
-        "seeds",
-        "precision",
-        "interpret",
-        "sort_tiles",
-        "merge",
-    ),
-)
-def fused_query_batch(
-    graph: GraphIndex,
-    q: jax.Array,
-    ef,  # RUNTIME int32 scalar (or python int) — no recompile across ef
-    k: int,
-    ef_cap: int = 128,
-    expand: int = 2,
-    cand: int = 16,
-    qt: int = 128,
-    seeds: int = 0,  # >0: dense multi-seed entry scan (needs entry_members)
-    precision: str = "default",
-    interpret: bool = False,
-    sort_tiles: bool = False,  # order queries by entry distance (straggler cut)
-    merge: str = "topt",  # in-kernel merge mode (ops/pallas_fused.py)
-    q_inv_scale: Optional[jax.Array] = None,  # (B, 1) f32, required for i8 q
-) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """Full batched query through the fully fused single-kernel traversal
-    (ops/pallas_fused.py): greedy upper-layer descent, then the ENTIRE
-    bottom-layer beam search in one Pallas kernel, then an exact f32
-    rerank of the final beam (the kernel scores bf16 packed blocks).
-
-    Separate entry point from ``query_batch`` because its caching regime
-    differs: ``ef`` is a runtime scalar operand (beam buffers are sized by
-    the static ``ef_cap`` bucket), so an ef_search sweep — free in the
-    reference, src/antitopo_engine.h:189-195 — reuses one compile per
-    128-wide ``ef_cap`` bucket (crossing a bucket boundary compiles the
-    wider-beam kernel once).  Requires ``graph.packed`` and ``B % qt == 0``.
-
-    ``q`` may be int8 codes (``query_wire='i8'``): the host ships 1 B/dim
-    plus a per-query absmax scale and the f32 query is reconstructed here,
-    in-trace, so the wire saving costs no extra dispatch.  Everything
-    downstream (descent, traversal, rerank) sees the dequantized f32 query;
-    the only error vs an f32 wire is the query's own quantization noise
-    (|err| <= absmax/254 per dim) — the graph analogue of the flat
-    engine's i8 wire (models/brute_force.py ``query_wire``).
-    """
-    assert graph.packed is not None, "index has no packed-neighbour arrays"
-    B = q.shape[0]
-    if q.dtype == jnp.int8:
-        assert q_inv_scale is not None, "i8 query wire needs q_inv_scale"
-        q = q.astype(jnp.float32) * q_inv_scale
-    q = q.astype(jnp.float32)
-    qn = squared_norms(q)
-    sentinel = graph.sentinel
-    EF = ef_cap + ((-ef_cap) % 128)
-    ef_s = jnp.minimum(
-        jnp.maximum(jnp.asarray(ef, jnp.int32), k), EF
-    )
-
-    if graph.packed_codes is not None:
-        # s8 packed blocks score in CODE space (build_packed_i8): quantize
-        # the query with the stored affine transform and seed the beam
-        # with code-space distances so the kernel's done/worst comparisons
-        # stay consistent; the exact f32 rerank below restores
-        # true-distance ranking (the reference's compressed beam + rerank
-        # flow, src/antitopo_engine.h:710-851, 845-848).
-        qk = jnp.clip(
-            jnp.round((q - graph.packed_center) * graph.packed_scale),
-            -127.0,
-            127.0,
-        )
-        qkn = jnp.sum(qk * qk, axis=1)
-    else:
-        qk, qkn = q, qn
-
-    ncomp_extra = jnp.int32(0)
-    if graph.entry_members is not None and seeds > 0:
-        # distcomp charge: the REAL member count (entry_members is
-        # lane-padded with sentinels whose +inf norms score nothing real);
-        # falls back to the padded width if the builder didn't record it
-        if graph.entry_members_n is not None:
-            ncomp_extra = graph.entry_members_n.astype(jnp.int32)
-        else:
-            ncomp_extra = jnp.int32(graph.entry_members.shape[0])
-        # multi-seed dense entry scan: one MXU matmul over the largest
-        # upper layer's members beats single-path greedy descent on
-        # multi-basin corpora (a wrong-basin entry can trap the beam —
-        # the measured recall plateau on clustered data, BENCH_NOTES).
-        # Dense scans are the cheap operation on TPU; the reference's
-        # closest analogue is its ortho_count multi-entry construction
-        # searches (src/antitopo_engine.h:333-381).
-        mem = graph.entry_members  # (n_l_pad,) sentinel-padded
-        if graph.packed_codes is not None:
-            mv = graph.packed_codes[mem].astype(jnp.float32)
-            mn = graph.packed_code_norms[mem]  # +inf at sentinel pads
-        else:
-            mv = graph.vectors[mem]
-            mn = graph.norms[mem]
-        md = mn[None, :] + qkn[:, None] - 2.0 * jax.lax.dot_general(
-            qk, mv, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # (B, n_l_pad)
-        S = min(seeds, EF)
-        neg_d, idx = jax.lax.approx_max_k(-md, S)
-        seed_ids = mem[idx]  # (B, S)
-        seed_d = -neg_d
-        bd0 = jnp.full((B, EF), INF, jnp.float32).at[:, :S].set(seed_d)
-        bi0 = jnp.full((B, EF), sentinel, jnp.int32).at[:, :S].set(seed_ids)
-    else:
-        ep = jnp.full((B,), graph.starting_vertex, jnp.int32)
-        ep_d = _gather_dist2(
-            graph.vectors, graph.norms, ep[:, None], q, qn, precision
-        )[:, 0]
-        for layer in reversed(graph.layers):
-            ep, ep_d = greedy_descent(
-                graph.vectors,
-                graph.norms,
-                layer.slot,
-                layer.adj,
-                q,
-                qn,
-                ep,
-                ep_d,
-                precision,
-            )
-        if graph.packed_codes is not None:
-            epc = graph.packed_codes[ep].astype(jnp.float32)
-            ep_d0 = (
-                qkn
-                + graph.packed_code_norms[ep]
-                - 2.0 * jnp.sum(qk * epc, axis=1)
-            )
-        else:
-            ep_d0 = ep_d
-        bd0 = jnp.full((B, EF), INF, jnp.float32).at[:, 0].set(ep_d0)
-        bi0 = jnp.full((B, EF), sentinel, jnp.int32).at[:, 0].set(ep)
-    if sort_tiles and B > qt:
-        # A query tile runs until its SLOWEST query converges, so kernel
-        # time is sum-over-tiles of max(per-query iters).  Entry-seed
-        # distance is a launch-time-available difficulty proxy: ordering
-        # queries by it groups similar-iteration queries into the same
-        # tile, cutting the per-tile straggler max (tools/probe_straggler
-        # measures proxy-vs-oracle).  Pure permutation — results are
-        # unpermuted below, so outputs are order-identical.
-        perm = jnp.argsort(jnp.min(bd0, axis=1))
-        inv = jnp.argsort(perm)
-        qk, bd0, bi0 = qk[perm], bd0[perm], bi0[perm]
-    else:
-        inv = None
-    beam_ids, _, ncomp_rows, _ = fused_search(
-        graph.packed,
-        graph.packed_aux,
-        qk,
-        bd0,
-        bi0,
-        ef=ef_s,
-        expand=expand,
-        cand=cand,
-        qt=qt,
-        interpret=interpret,
-        merge=merge,
-        # dev-only cost/ablation knob (ops/pallas_fused.py DBG flags,
-        # e.g. "eager_wait" reverts the per-group DMA-wait overlap)
-        dbg=os.environ.get("EXPANN_FUSED_DBG", ""),
-    )
-    if inv is not None:
-        beam_ids, ncomp_rows = beam_ids[inv], ncomp_rows[inv]
-    ncomp = ncomp_rows + ncomp_extra  # (B,) per-query
-    # Exact f32 rerank of the final (unsorted) beam, as the packed and
-    # compressed paths do; also pushes sentinel/+inf lanes to the end.
-    beam_d = _gather_dist2(
-        graph.vectors, graph.norms, beam_ids, q, qn, precision
-    )
-    beam_d, beam_ids = jax.lax.sort((beam_d, beam_ids), num_keys=1)
     return beam_ids[:, :k], beam_d[:, :k], ncomp

@@ -1,14 +1,15 @@
-"""MXU matmul-distance primitives.
+"""Matmul-distance primitives.
 
-TPU-native replacement for the reference's AVX-512 L2^2 kernels
+Replacement for the reference's AVX-512 L2^2 kernels
 (reference: src/distance.h:86-148 ``distance_compare_avx512f_f16[_batch128]``,
 src/vec.h:139-156 ``dist/dist2``).  Instead of one-vector-at-a-time SIMD FMA
-loops, every distance here is a batched matrix product on the MXU:
+loops, every distance here is a batched matrix product:
 
     d2(q, x) = |q|^2 + |x|^2 - 2 q.x
 
-All arrays are padded so the feature dimension is a multiple of the 128-lane
-TPU register width; zero padding leaves L2 distances unchanged (the reference
+All arrays are padded so the feature dimension is a multiple of 128 (a row
+is then a whole number of 128-byte cache lines in every storage dtype,
+int8 included); zero padding leaves L2 distances unchanged (the reference
 imposes the analogous constraint DIM % 64 == 0 at compile time,
 reference: CMakeLists.txt:100-101, and zero-pads inputs in
 src/pyrunner.cpp:20-27).
@@ -22,8 +23,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-LANE = 128  # TPU lane width; last-dim padding target.
-SUBLANE = 8  # f32 sublane count; row padding target for 2-D tiles.
+LANE = 128  # feature-dim padding target (see module docstring)
+SUBLANE = 8  # default row padding target for 2-D tiles
 
 
 def pad_dim(x, multiple: int = LANE):
@@ -66,10 +67,11 @@ def pairwise_dist2(
 ) -> jax.Array:
     """All-pairs squared L2 distances ``(B, D) x (N, D) -> (B, N)``.
 
-    One MXU matmul replaces B*N scalar kernel invocations of the reference
+    One matmul replaces B*N scalar kernel invocations of the reference
     (src/distance.h:86-111).  ``precision='highest'`` runs the f32 matmul in
-    full precision (bf16x6 passes) so distances match numpy closely; use
-    ``'default'`` to trade a little accuracy for speed.
+    full f32 precision so distances match numpy closely; ``'default'``
+    trades accuracy for speed (on the GPU an f32 matmul at ``'default'``
+    runs in TF32, about three decimal digits).
     """
     q = q.astype(jnp.float32)
     x = x.astype(jnp.float32)

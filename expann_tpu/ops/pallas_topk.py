@@ -1,29 +1,34 @@
-"""Fused brute-force k-NN Pallas kernel: streamed matmul-distance + on-chip
-top-k merge.
+"""Flat k-NN scan: distance GEMM fused with a running top-k selection.
 
 Replaces the reference's scalar linear scan + heap
-(reference: src/brute_force_engine.h:29-46) AND the two-op XLA pipeline
-(matmul then lax.top_k).  The XLA pipeline materializes the full (B, N)
-distance matrix in HBM and then runs a sort-class op over it; on this
-hardware sorts and large elementwise ops sustain only a few GB/s while the
-MXU sustains tens of TFLOP/s, so the distance matrix round-trip dominates
-end-to-end latency (and at N=1M the s32[B,N] sort buffers exceed HBM).
+(reference: src/brute_force_engine.h:29-46).  Writing the (B, N) distance
+matrix and then selecting over it moves 4·B·N bytes for 2·B·N·D FLOPs of
+GEMM, far below the card's FLOP-per-byte ridge; fusing the selection into
+the GEMM reads the corpus and the queries once and writes only (B, k).
 
-This kernel streams the corpus once:
+``flat_topk`` is a Pallas kernel on the Triton route over a corpus
+prepared by ``prepare_corpus`` (rows padded to ``ROW_ALIGN``; padding rows
+carry a +inf squared norm, so they score +inf and never enter a top-k).
+Each program owns one query tile and one contiguous split of the corpus,
+and loops over corpus blocks inside the kernel: ``pl.dot`` scores the
+block (bf16 with f32 accumulation, or int8 with int32 accumulation), and
+the tile's running top-k stays in registers.  A block is merged only as
+far as it can contribute: one reduction counts, per row, the candidates
+that beat the row's current k-th distance, and only ``max(count)``
+extract/insert passes run (late blocks rarely contribute, so most blocks
+cost the GEMM and one compare).  Per-split lists are merged by one small
+sort.  On an H100 it beats the plain XLA version (chunked GEMM +
+``lax.top_k`` + running merge, kept in tools/perf_flat_topk.py) at both
+of its call sites, flat serving and build candidates (PERF.md).
 
-    grid = (query tiles, corpus blocks)         # corpus minor
-    per step: dot((Bt, D), (G, D)^T) on the MXU in VMEM,
-              then a k-pass min-extraction merges the block's distances
-              into a persistent (Bt, k) running top-k in VMEM scratch,
-    writes only the final (Bt, k) ids + distances.
-
-HBM traffic = corpus bytes (sequential) + query tiles; nothing N-sized is
-ever written.  Ties broken by lower id (lexicographic (d, id)), matching
-lax.top_k and the reference's set ordering.
+Distances are those of the stored representation (bf16-rounded vectors, or
+int8 codes in code space); use ``BruteForceEngine(mode="exact")`` as the
+ground-truth oracle.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Tuple
 
@@ -31,374 +36,210 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-NEG_BIG = 3.0e38  # "knocked out / empty" marker (positive huge)
+from expann_tpu.utils import runtime
 
-
-def _topk_merge_kernel(
-    q_ref,  # (Bt, D) VMEM (storage dtype)
-    x_ref,  # (G, D) VMEM (storage dtype)
-    out_d_ref,  # (Bt, k) f32
-    out_i_ref,  # (Bt, k) int32
-    run_d,  # scratch (Bt, k) f32
-    run_i,  # scratch (Bt, k) int32
-    *,
-    k: int,
-    G: int,
-    n_real: int,
-):
-    j = pl.program_id(1)
-    nj = pl.num_programs(1)
-
-    @pl.when(j == 0)
-    def _init():
-        run_d[:] = jnp.full(run_d.shape, NEG_BIG, jnp.float32)
-        # distinct sentinel ids per slot — worst-slot selection relies on
-        # (d, id) uniqueness to replace exactly one slot
-        slot_col = jax.lax.broadcasted_iota(jnp.int32, run_i.shape, 1)
-        run_i[:] = jnp.int32(2**31 - 1) - slot_col
-
-    q = q_ref[:]
-    Bt = q.shape[0]
-    x = x_ref[:]
-    if q.dtype == jnp.int8:
-        # s8 x s8 -> s32 MXU path (2x bf16 peak, half the HBM stream).
-        # Max |code| 127 and D <= 512 keep dd < 2^24, so the f32
-        # conversion below is EXACT and the extraction logic is shared.
-        dots = jax.lax.dot_general(
-            q,
-            x,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        qi = q.astype(jnp.int32)
-        qn = jnp.sum(qi * qi, axis=1, keepdims=True)
-        xi = x.astype(jnp.int32)
-        xn = jnp.sum(xi * xi, axis=1)[None, :]
-        dd = (qn + xn - 2 * dots).astype(jnp.float32)  # (Bt, G)
-    else:
-        dots = jax.lax.dot_general(
-            q,
-            x,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        qf = q.astype(jnp.float32)
-        qn = jnp.sum(qf * qf, axis=1, keepdims=True)  # (Bt, 1)
-        xf = x.astype(jnp.float32)
-        xn = jnp.sum(xf * xf, axis=1)[None, :]  # (1, G)
-        dd = qn + xn - 2.0 * dots  # (Bt, G)
-    col = jax.lax.broadcasted_iota(jnp.int32, (Bt, G), 1)
-    dd = jnp.where(j * G + col >= n_real, NEG_BIG, dd)
-
-    # Pool the block's G distances down to LANES (=128) cells, tracking
-    # which chunk attained each lane's min.  All subsequent reductions run
-    # at 128-lane width, so the k extraction passes cost ~G/LANES less
-    # than full-width extraction.  Cell semantics: a cell holds the
-    # same lane across G/LANES chunks; losing a cell's second-best only
-    # costs recall if two GLOBAL top-k members share (block, lane) —
-    # probability ~ C(k,2) / (num_blocks * LANES), negligible.
-    LANES = 128
-    nch = G // LANES
-    pooled_d = dd[:, :LANES]
-    pooled_c = jnp.zeros((Bt, LANES), jnp.int32)
-    for c in range(1, nch):
-        ch = dd[:, c * LANES : (c + 1) * LANES]
-        better_c = ch < pooled_d
-        pooled_d = jnp.where(better_c, ch, pooled_d)
-        pooled_c = jnp.where(better_c, c, pooled_c)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (Bt, LANES), 1)
-    for _ in range(k):
-        m = jnp.min(pooled_d, axis=1, keepdims=True)  # (Bt, 1)
-        is_min = pooled_d == m
-        lane_id = jnp.min(
-            jnp.where(is_min, lane, jnp.int32(2**31 - 1)),
-            axis=1,
-            keepdims=True,
-        )
-        sel = is_min & (lane == lane_id)  # exactly one lane per row
-        chunk_sel = jnp.max(
-            jnp.where(sel, pooled_c, jnp.int32(-1)), axis=1, keepdims=True
-        )
-        pos_id = j * G + chunk_sel * LANES + lane_id  # (Bt, 1) global id
-        # insert into the running top-k: replace the worst slot if better
-        w = jnp.max(run_d[:], axis=1, keepdims=True)
-        is_w = run_d[:] == w
-        w_id = jnp.max(
-            jnp.where(is_w, run_i[:], jnp.int32(-1)), axis=1, keepdims=True
-        )
-        better = (m[:, 0] < w[:, 0]) | (
-            (m[:, 0] == w[:, 0]) & (pos_id[:, 0] < w_id[:, 0])
-        )
-        take = is_w & (run_i[:] == w_id) & better[:, None]
-        run_d[:] = jnp.where(take, m, run_d[:])
-        run_i[:] = jnp.where(take, pos_id, run_i[:])
-        # knock the extracted cell out
-        pooled_d = jnp.where(sel, NEG_BIG, pooled_d)
-
-    # flush the (unsorted) running top-k every step; the caller sorts the
-    # tiny (B, k) result, so no write-only-on-last-step assumptions
-    out_d_ref[:] = run_d[:]
-    out_i_ref[:] = run_i[:]
+ROW_ALIGN = 4096  # corpus row padding; every split size below divides it
+MAX_K = 128  # per-split list width the kernel keeps in registers
+# Enough programs to give every SM of an H100 (132) two of them.
+TARGET_PROGRAMS = 264
+NUM_WARPS = 4
+_BIG = 3.0e38  # "empty slot" distance: worse than any real one, below +inf
 
 
-def _topk_merge_kernel_count(
-    q_ref,  # (Bt, D) VMEM (storage dtype)
-    x_ref,  # (G, D) VMEM (storage dtype)
-    out_d_ref,  # (Bt, k) f32
-    out_i_ref,  # (Bt, k) int32
-    run_k,  # scratch (Bt, k) f32 PACKED KEYS (value | slot index)
-    run_i,  # scratch (Bt, k) int32
-    *,
-    k: int,
-    G: int,
-    n_real: int,
-):
-    """Count-then-loop top-k merge (the ``mode='count'`` kernel).
+@dataclasses.dataclass
+class FlatCorpus:
+    """A corpus laid out for the flat scan.
 
-    The fixed-pass kernel above runs exactly ``k`` extract+insert passes
-    per (query tile, corpus block) grid step — ~5 cross-lane reductions
-    each — even though, with the corpus streamed in arbitrary order, a
-    late block almost never contributes to the running top-k (expected
-    insertions per block fall as k/j for block j).  This kernel:
+    ``x``: (N_pad, D_pad) bf16 or int8; ``norms``: (N_pad,) f32 squared
+    norms of the stored rows, +inf on padding rows.  For int8 codes,
+    ``center``/``scale`` map a float query into code space
+    (``quantize_query_i8``)."""
 
-      * packs each candidate's (chunk, lane) index into the distance's
-        low mantissa bits (the packed-key trick from ops/pallas_fused.py:
-        one f32 reduction returns the extreme value AND its position;
-        <= 2^-13 relative clobber, below the bf16 corpus rounding),
-      * counts, with ONE reduction, how many pooled candidates beat the
-        running worst, and runs only ``min(count, k)`` extract+insert
-        passes (a dynamic-bound fori_loop).  ``count`` is taken against
-        the block-entry worst, which only tightens during insertion, so
-        the prefix property holds: insertions stop at the first failed
-        candidate (extraction is ascending), and at most k can succeed —
-        the bound is exact, never short.
-
-    Output distances carry the packed-key clobber (low bits zeroed) and
-    ties break by (clobbered distance, slot/id) rather than the fixed
-    kernel's exact (d, id) — both below the layer's documented bf16
-    approximation; the exact oracle remains BruteForceEngine('exact').
-    """
-    j = pl.program_id(1)
-    LANES = 128
-    nch = G // LANES
-    CB = max(1, (nch - 1).bit_length())
-    LB = 7 + CB  # lane (7 bits) | chunk (CB bits); slots reuse the low 7
-    LMASK = (1 << LB) - 1
-    KEYM = ~LMASK
-    INFP = float("inf")
-
-    def pack(d, idx):
-        db = jax.lax.bitcast_convert_type(
-            jnp.clip(d, 1.0e-35, 3.0e38), jnp.int32
-        )
-        return jax.lax.bitcast_convert_type((db & KEYM) | idx, jnp.float32)
-
-    def bits(v):
-        return jax.lax.bitcast_convert_type(v, jnp.int32)
-
-    @pl.when(j == 0)
-    def _init():
-        slot_col = jax.lax.broadcasted_iota(jnp.int32, run_k.shape, 1)
-        run_k[:] = pack(jnp.full(run_k.shape, NEG_BIG, jnp.float32), slot_col)
-        run_i[:] = jnp.int32(2**31 - 1) - slot_col
-
-    q = q_ref[:]
-    Bt = q.shape[0]
-    x = x_ref[:]
-    if q.dtype == jnp.int8:
-        dots = jax.lax.dot_general(
-            q, x, dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        qi = q.astype(jnp.int32)
-        qn = jnp.sum(qi * qi, axis=1, keepdims=True)
-        xi = x.astype(jnp.int32)
-        xn = jnp.sum(xi * xi, axis=1)[None, :]
-        dd = (qn + xn - 2 * dots).astype(jnp.float32)
-    else:
-        dots = jax.lax.dot_general(
-            q, x, dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        qf = q.astype(jnp.float32)
-        qn = jnp.sum(qf * qf, axis=1, keepdims=True)
-        xf = x.astype(jnp.float32)
-        xn = jnp.sum(xf * xf, axis=1)[None, :]
-        dd = qn + xn - 2.0 * dots
-    col = jax.lax.broadcasted_iota(jnp.int32, (Bt, G), 1)
-    dd = jnp.where(j * G + col >= n_real, NEG_BIG, dd)
-
-    # pool to 128 lanes with the chunk index riding the key bits (same
-    # lane-pooling approximation as the fixed kernel)
-    lane7 = jax.lax.broadcasted_iota(jnp.int32, (Bt, LANES), 1)
-    pooled_k = pack(dd[:, :LANES], lane7)
-    for c in range(1, nch):
-        pooled_k = jnp.minimum(
-            pooled_k, pack(dd[:, c * LANES : (c + 1) * LANES], lane7 | (c << 7))
-        )
-
-    # one reduction each: the running worst and the insertable count
-    w0 = jnp.max(run_k[:], axis=1, keepdims=True)  # (Bt, 1) packed
-    cand_sat = jax.lax.bitcast_convert_type(
-        bits(pooled_k) | LMASK, jnp.float32
-    )  # ties lose to any slot (strict <)
-    counts = jnp.sum((cand_sat < w0).astype(jnp.int32), axis=1)
-    t = jnp.minimum(jnp.max(counts), k)  # scalar; prefix bound, see above
-
-    slot_lane = jax.lax.broadcasted_iota(jnp.int32, (Bt, k), 1)
-
-    def body(_, pk):
-        kmin = jnp.min(pk, axis=1, keepdims=True)  # packed: value+chunk+lane
-        kb = bits(kmin)
-        lane_id = kb & 127
-        chunk_id = (kb & LMASK) >> 7
-        pos_id = j * G + chunk_id * LANES + lane_id  # (Bt, 1)
-        rk = run_k[:]
-        w = jnp.max(rk, axis=1, keepdims=True)  # packed: value+slot
-        ck_cmp = jax.lax.bitcast_convert_type(kb | LMASK, jnp.float32)
-        better = ck_cmp < w  # strict on the clobbered value
-        w_slot = bits(w) & LMASK
-        take = (slot_lane == w_slot) & better
-        new_k = jax.lax.bitcast_convert_type((kb & KEYM) | w_slot, jnp.float32)
-        run_k[:] = jnp.where(take, new_k, rk)
-        run_i[:] = jnp.where(take, pos_id, run_i[:])
-        # knock the extracted lane out (whole lane, as the fixed kernel)
-        return jnp.where(lane7 == lane_id, INFP, pk)
-
-    jax.lax.fori_loop(0, t, body, pooled_k)
-
-    # strip the slot bits: output distances are the clobbered values
-    out_d_ref[:] = jax.lax.bitcast_convert_type(
-        bits(run_k[:]) & KEYM, jnp.float32
-    )
-    out_i_ref[:] = run_i[:]
+    x: jax.Array
+    norms: jax.Array
+    n: int
+    center: np.ndarray | None = None
+    scale: float = 1.0
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "k", "n_real", "query_tile", "corpus_block", "interpret", "mode"
-    ),
-)
-def flat_topk(
-    q: jax.Array,  # (B, D) f32
-    x: jax.Array,  # (N_pad, D) storage dtype (f32/bf16); row-padded
-    n_real: int,
-    k: int,
-    query_tile: int = 256,
-    corpus_block: int = 1024,
-    interpret: bool = False,
-    mode: str = "count",  # "count" (count-then-loop, default) | "fixed"
-) -> Tuple[jax.Array, jax.Array]:
-    """Near-exact k-NN of every query against the corpus: returns
-    ``(ids, d2)`` of shape (B, k), ascending by (distance, id).  B must be
-    a multiple of query_tile and N_pad of corpus_block.
-
-    Two small approximations (measured recall@10 ~0.993, not 1.0): the
-    extraction step pools each corpus block to 128 lanes first, so a
-    block's second-best candidate sharing a lane with the best can be
-    lost for that pass, and the serving corpus is typically stored bf16.
-    Use BruteForceEngine(mode='exact') as the ground-truth oracle, never
-    this kernel."""
-    B, D = q.shape
-    N_pad = x.shape[0]
-    assert B % query_tile == 0 and N_pad % corpus_block == 0
-    # the extraction pools each block to 128 lanes and knocks out one lane
-    # per pass — beyond 128 passes there is nothing left to extract
-    assert k <= 128, "flat_topk extraction supports k <= 128"
-    if x.dtype == jnp.int8:
-        # int8 corpora need properly quantized queries (round, not
-        # truncate) — quantize with quantize_corpus_i8's scale upstream
-        assert q.dtype == jnp.int8, "int8 corpus requires int8 queries"
-        qc = q
-    else:
-        qc = q.astype(x.dtype)
-
-    grid = (B // query_tile, N_pad // corpus_block)
-    kfn = (
-        _topk_merge_kernel_count if mode == "count" else _topk_merge_kernel
-    )
-    kernel = functools.partial(kfn, k=k, G=corpus_block, n_real=n_real)
-    out_d, out_i = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (query_tile, D), lambda i, j: (i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (corpus_block, D), lambda i, j: (j, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (query_tile, k), lambda i, j: (i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (query_tile, k), lambda i, j: (i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, k), jnp.float32),
-            jax.ShapeDtypeStruct((B, k), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((query_tile, k), jnp.float32),
-            pltpu.VMEM((query_tile, k), jnp.int32),
-        ],
-        interpret=interpret,
-    )(qc, x)
-    # empty-slot test below NEG_BIG: count mode's packed keys zero the low
-    # mantissa bits, so the marker reads back slightly under 3e38; no real
-    # (clamped) distance approaches 1e38
-    out_d = jnp.where(out_d >= 1.0e38, jnp.inf, jnp.maximum(out_d, 0.0))
-    # the kernel's running top-k is unsorted; (B, k) sort is negligible
-    out_d, out_i = jax.lax.sort((out_d, out_i), num_keys=2)
-    return out_i, out_d
+def _pad_width(d: int) -> int:
+    """Feature width the kernel loads: a power of two (Triton block
+    shapes), at least 32 (int8 tensor-core operand depth)."""
+    return max(32, pl.next_power_of_2(d))
 
 
-def flat_topk_prepare(
-    x: np.ndarray, dtype=jnp.bfloat16, corpus_block: int = 1024
-) -> Tuple[jax.Array, int]:
-    """Pad + upload a host corpus for flat_topk: returns (x_dev, n)."""
+def _layout(rows: np.ndarray, dtype, min_rows: int) -> Tuple[jax.Array, jax.Array]:
+    n, d = rows.shape
+    n_pad = max(n, min_rows)
+    n_pad += (-n_pad) % ROW_ALIGN
+    out = np.zeros((n_pad, _pad_width(d)), rows.dtype)
+    out[:n, :d] = rows
+    xf = out[:n].astype(np.float32)
+    norms = np.full(n_pad, np.inf, np.float32)
+    norms[:n] = (xf * xf).sum(axis=1)
+    return jnp.asarray(out, dtype), jnp.asarray(norms)
+
+
+def prepare_corpus(
+    x: np.ndarray, dtype=jnp.bfloat16, min_rows: int = 0
+) -> FlatCorpus:
+    """Pad + upload a host corpus for the flat scan.  ``dtype`` is
+    ``jnp.bfloat16`` (norms of the bf16-rounded rows) or ``jnp.int8``
+    (centered symmetric codes, one shared scale: distances are
+    shift-invariant and a common scale keeps the ranking of integer
+    distances monotone in the true ones).  Rows are padded to at least
+    ``min_rows``, then to a multiple of ``ROW_ALIGN``."""
     x = np.asarray(x, np.float32)
-    n = x.shape[0]
-    pad = (-n) % corpus_block
-    if pad:
-        x = np.concatenate([x, np.zeros((pad, x.shape[1]), np.float32)])
-    return jnp.asarray(x, dtype), n
+    if dtype == jnp.int8:
+        center = x.mean(axis=0)
+        xc = x - center
+        scale = 127.0 / (float(np.abs(xc).max()) or 1.0)
+        codes = np.clip(np.rint(xc * scale), -127, 127).astype(np.int8)
+        xd, norms = _layout(codes, jnp.int8, min_rows)
+        return FlatCorpus(xd, norms, x.shape[0], center, scale)
+    import ml_dtypes
 
-
-def quantize_corpus_i8(
-    x: np.ndarray, corpus_block: int = 1024
-) -> Tuple[jax.Array, np.ndarray, float, int]:
-    """Symmetric centered int8 codes for the s8 MXU flat scan.
-
-    Distances are shift-invariant, so centering by the corpus mean costs
-    nothing; the common scale makes integer distances a monotonic
-    s^2-multiple of true distances.  Returns
-    ``(codes_dev, center, scale, n)``; quantize queries with
-    ``quantize_query_i8(q, center, scale)``.
-    """
-    x = np.asarray(x, np.float32)
-    n = x.shape[0]
-    center = x.mean(axis=0)
-    xc = x - center
-    absmax = float(np.abs(xc).max()) or 1.0
-    scale = 127.0 / absmax
-    codes = np.clip(np.rint(xc * scale), -127, 127).astype(np.int8)
-    pad = (-n) % corpus_block
-    if pad:
-        codes = np.concatenate(
-            [codes, np.zeros((pad, codes.shape[1]), np.int8)]
-        )
-    return jnp.asarray(codes), center, scale, n
+    xd, norms = _layout(x.astype(ml_dtypes.bfloat16), jnp.bfloat16, min_rows)
+    return FlatCorpus(xd, norms, x.shape[0])
 
 
 def quantize_query_i8(q: np.ndarray, center: np.ndarray, scale: float) -> np.ndarray:
     return np.clip(
         np.rint((np.asarray(q, np.float32) - center) * scale), -127, 127
     ).astype(np.int8)
+
+
+def _tiles(k: int) -> Tuple[int, int, int]:
+    """(query tile, corpus block, list width K) for a given k: the running
+    list is (Bt, K) distances + ids in registers, the block's scores
+    (Bt, G) beside it, over NUM_WARPS warps."""
+    K = max(16, pl.next_power_of_2(k))
+    if K <= 16:
+        return 64, 128, K
+    if K <= 64:
+        return 32, 128, K
+    return 32, 64, K
+
+
+def _splits(n_tiles: int, n_pad: int, G: int) -> int:
+    """Corpus splits (second grid axis) so that small query batches still
+    put ``TARGET_PROGRAMS`` programs on the card."""
+    s = 1
+    while s * n_tiles < TARGET_PROGRAMS and n_pad % (2 * s * G) == 0:
+        s *= 2
+    return s
+
+
+def _scan_kernel(q_ref, x_ref, xn_ref, d_ref, i_ref, *, k, K, G, n_split):
+    Bt = q_ref.shape[0]
+    q = q_ref[...]
+    if q.dtype == jnp.int8:
+        qi = q.astype(jnp.int32)
+        qn = jnp.sum(qi * qi, axis=1).astype(jnp.float32)
+    else:
+        qf = q.astype(jnp.float32)
+        qn = jnp.sum(qf * qf, axis=1)
+    base = pl.program_id(1) * n_split
+    slot = jax.lax.broadcasted_iota(jnp.int32, (Bt, K), 1)
+    col = jax.lax.broadcasted_iota(jnp.int32, (Bt, G), 1)
+    # slots >= k sit at -inf: never the row's worst, never replaced
+    run_d = jnp.where(slot < k, _BIG, -jnp.inf).astype(jnp.float32)
+    run_i = jnp.full((Bt, K), -1, jnp.int32)
+
+    def block(j, carry):
+        run_d, run_i = carry
+        rows = pl.ds(pl.multiple_of(j * G, G), G)
+        x = x_ref[rows, :]
+        xn = xn_ref[rows]
+        dots = pl.dot(q, x, trans_b=True).astype(jnp.float32)
+        dd = qn[:, None] + xn[None, :] - 2.0 * dots  # (Bt, G)
+        worst = jnp.max(run_d, axis=1)
+        cnt = jnp.sum((dd < worst[:, None]).astype(jnp.int32), axis=1)
+        passes = jnp.minimum(jnp.max(cnt), k)
+
+        def insert(_, c):
+            dd, run_d, run_i = c
+            m = jnp.min(dd, axis=1)
+            pos = jnp.argmin(dd, axis=1).astype(jnp.int32)
+            w = jnp.max(run_d, axis=1)
+            w_slot = jnp.argmax(run_d, axis=1).astype(jnp.int32)
+            take = (slot == w_slot[:, None]) & (m < w)[:, None]
+            run_d = jnp.where(take, m[:, None], run_d)
+            run_i = jnp.where(take, (base + j * G + pos)[:, None], run_i)
+            dd = jnp.where(col == pos[:, None], jnp.inf, dd)
+            return dd, run_d, run_i
+
+        _, run_d, run_i = jax.lax.fori_loop(
+            0, passes, insert, (dd, run_d, run_i)
+        )
+        return run_d, run_i
+
+    run_d, run_i = jax.lax.fori_loop(0, n_split // G, block, (run_d, run_i))
+    d_ref[...] = run_d
+    i_ref[...] = run_i
+
+
+def _merge(d, ids, k: int, n_pad: int):
+    """(B, L) unsorted candidate lists -> ascending (ids, d2) of width k;
+    empty slots come back as id ``n_pad`` at +inf."""
+    empty = (d >= _BIG) | (ids < 0)
+    d = jnp.where(empty, jnp.inf, jnp.maximum(d, 0.0))
+    ids = jnp.where(empty, n_pad, ids)
+    d, ids = jax.lax.sort((d, ids), num_keys=2)
+    return ids[:, :k], d[:, :k]
+
+
+def _cast_query(q, x_dtype):
+    if x_dtype == jnp.int8:
+        # int8 corpora need int8 queries quantized with the corpus's own
+        # center and scale (quantize_query_i8), not a cast
+        assert q.dtype == jnp.int8, "int8 corpus requires int8 queries"
+        return q
+    return q.astype(x_dtype)
+
+
+def _pad_query(q, width: int, multiple: int):
+    B, D = q.shape
+    return jnp.pad(q, ((0, (-B) % multiple), (0, width - D)))
+
+
+@functools.partial(jax.jit, static_argnames=("k",))
+def flat_topk(q: jax.Array, x: jax.Array, xn: jax.Array, k: int):
+    """Top-k of every query against a prepared corpus (``x``/``xn`` of a
+    ``FlatCorpus``): returns ``(ids, d2)`` of shape (B, k), ascending by
+    (distance, id).  Any B; ``k <= MAX_K``."""
+    assert 1 <= k <= MAX_K, f"flat_topk supports 1 <= k <= {MAX_K}"
+    B = q.shape[0]
+    n_pad, width = x.shape
+    Bt, G, K = _tiles(k)
+    qp = _pad_query(_cast_query(q, x.dtype), width, Bt)
+    n_tiles = qp.shape[0] // Bt
+    S = _splits(n_tiles, n_pad, G)
+    n_split = n_pad // S
+    d, ids = pl.pallas_call(
+        functools.partial(_scan_kernel, k=k, K=K, G=G, n_split=n_split),
+        grid=(n_tiles, S),
+        in_specs=[
+            pl.BlockSpec((Bt, width), lambda i, s: (i, 0)),
+            pl.BlockSpec((n_split, width), lambda i, s: (s, 0)),
+            pl.BlockSpec((n_split,), lambda i, s: (s,)),
+        ],
+        out_specs=[
+            pl.BlockSpec((None, Bt, K), lambda i, s: (s, i, 0)),
+            pl.BlockSpec((None, Bt, K), lambda i, s: (s, i, 0)),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct((S, qp.shape[0], K), jnp.float32),
+            jax.ShapeDtypeStruct((S, qp.shape[0], K), jnp.int32),
+        ],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS, num_stages=3),
+        interpret=runtime.pallas_interpret(),
+        name="flat_topk_scan",
+    )(qp, x, xn)
+    # (S, Bp, K) -> (Bp, S * k): the first k slots of each split's list
+    d = jnp.transpose(d[:, :B, :k], (1, 0, 2)).reshape(B, S * k)
+    ids = jnp.transpose(ids[:, :B, :k], (1, 0, 2)).reshape(B, S * k)
+    return _merge(d, ids, k, n_pad)

@@ -1,6 +1,6 @@
 """Scalar quantization of the corpus.
 
-TPU-native counterpart of the reference's quantizers
+Counterpart of the reference's quantizers
 (reference: src/quantizer.h):
 
   * ``quantize_simple``: the live path — elementwise cast float -> uint8
@@ -13,11 +13,10 @@ TPU-native counterpart of the reference's quantizers
     first-class option: codes = round(scale * x + offset) clipped to
     [0, 255], with distances rescaled by 1/scale^2.
 
-Either way the codes live as a ``(N + 1, D_pad)`` uint8 array — 4x less HBM
-traffic per gathered neighbour block than f32, which is the whole point: the
-beam-search hot loop is HBM-bandwidth-bound.  Scoring casts gathered codes
-to f32 and reuses the MXU matmul-distance; all involved integers are < 2^24
-so f32 arithmetic is exact.
+Either way the codes live as a ``(N + 1, D_pad)`` uint8 array — 4x fewer
+device-memory bytes per gathered neighbour block than f32.  Scoring casts
+gathered codes to f32 and reuses the matmul-distance; all involved
+integers are < 2^24 so f32 arithmetic is exact.
 """
 
 from __future__ import annotations

@@ -4,7 +4,6 @@ from expann_tpu.parallel.sharded import (
     build_sharded,
     build_sharded_flat,
     make_mesh,
-    replicated_fused_query_dp,
     replicated_query_dp,
     sharded_build_step,
     sharded_flat_query,
@@ -17,7 +16,6 @@ __all__ = [
     "build_sharded",
     "build_sharded_flat",
     "make_mesh",
-    "replicated_fused_query_dp",
     "replicated_query_dp",
     "sharded_build_step",
     "sharded_flat_query",

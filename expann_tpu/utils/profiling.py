@@ -3,13 +3,13 @@
 The reference's observability stack is compile-time stat counters
 (RECORD_STATS num_distcomps / total_query_time,
 src/antitopo_engine.h:125-129) plus external callgrind/perf toggles around
-the query loop (src/basic_bench.h:76-77,128-129).  TPU equivalents:
+the query loop (src/basic_bench.h:76-77,128-129).  Equivalents here:
 
   * the stat counters live on the engine (num_distcomps,
     num_distcomps_compressed, total_query_time_ns — see models/antitopo.py)
     and are carried out of the jitted kernels as explicit outputs,
   * ``trace(...)`` wraps a code region in a ``jax.profiler`` trace — the
-    TPU-native replacement for the callgrind toggles; open the resulting
+    replacement for the callgrind toggles; open the resulting
     directory with TensorBoard or xprof to see per-kernel HLO timings.
 """
 

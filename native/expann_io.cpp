@@ -1,6 +1,6 @@
 // Native IO runtime for expann_tpu.
 //
-// TPU-native counterpart of the reference's C++ data layer: the fvecs/ivecs
+// Counterpart of the reference's C++ data layer: the fvecs/ivecs
 // record parser (reference: src/dataset_loader.h:96-125 Tvecs_read) and raw
 // binary blob IO used by index persistence (reference:
 // src/antitopo_engine.h:930-1074 serialize/deserialize).  Exposed as a tiny

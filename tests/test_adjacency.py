@@ -5,7 +5,7 @@ The reference's insert loop guards every reverse append with an
 ever holds the same neighbour twice and no row points at itself.  All
 three builders (one-shot, wave, distributed) must uphold the same
 invariants: duplicates would waste adjacency slots, inflate degree counts
-and distcomp statistics, and survive into the packed serving layout.
+and distcomp statistics.
 """
 
 import numpy as np

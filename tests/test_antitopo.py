@@ -74,9 +74,9 @@ def test_engine_matches_oracle_recall():
     )
     eng.store_many_vectors(x)
     eng.build()
-    # parity across an ef sweep spanning the serving range (VERDICT r4
-    # gate: ef in {20, 50, 100} on 2k points, within epsilon of the
-    # sequential oracle), not just one operating point
+    # parity across an ef sweep spanning the serving range (ef in
+    # {20, 50, 100} on 2k points, within epsilon of the sequential
+    # oracle), not just one operating point
     for ef_i in (20, 50, 100):
         oracle_rec = _recall(
             np.array([oracle.query_k(row, k, ef_search=ef_i) for row in q]),
@@ -85,12 +85,12 @@ def test_engine_matches_oracle_recall():
         eng.set_ef_search(ef_i)
         rec = _recall(eng.query_k_batch(q, k), gt)
         assert rec >= oracle_rec - 0.03, (
-            f"ef={ef_i}: tpu {rec} vs oracle {oracle_rec}"
+            f"ef={ef_i}: engine {rec} vs oracle {oracle_rec}"
         )
 
 
 def test_engine_distcomps_vs_oracle_selectivity():
-    """Selectivity parity (VERDICT r1 item 5): at equal ef the batched
+    """Selectivity parity: at equal ef the batched
     graph's distance computations per query must stay within a constant
     factor of the sequential oracle's (RECORD_STATS num_distcomps,
     src/antitopo_engine.h:125-128).  The batched beam pays a fixed

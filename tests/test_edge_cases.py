@@ -62,29 +62,3 @@ def test_build_without_vectors_raises():
     eng = AntitopoEngine(config=AntitopoConfig(M=4, ef_construction=8))
     with pytest.raises(AssertionError):
         eng.build()
-
-
-def test_packed_hbm_budget_guard(monkeypatch):
-    """When the packed-neighbour layout would exceed the HBM budget the
-    engine must fall back to the XLA gather beam instead of materializing
-    it (the reference serves any RAM-resident corpus untruncated,
-    src/in_memory_dataset.h:25-47 — at e.g. N=1M with the canonical
-    M0=120 grid the packed duplication is 16.4GB on a 16GB chip)."""
-    monkeypatch.setenv("EXPANN_PACKED_BUDGET_GB", "0.0000001")
-    rng = np.random.default_rng(4)
-    x = rng.standard_normal((400, 32)).astype(np.float32)
-    eng = AntitopoEngine(
-        config=AntitopoConfig(M=6, ef_construction=30, use_packed=True)
-    )
-    eng.store_many_vectors(x)
-    eng.build()
-    assert eng._resolve_packed() is False
-    assert eng.graph.packed is None
-    eng.set_ef_search(40)
-    ids = eng.query_k_batch(x[:8], 5)
-    assert (ids[np.arange(8), 0] == np.arange(8)).all()
-
-    # generous budget: the packed layout materializes
-    monkeypatch.setenv("EXPANN_PACKED_BUDGET_GB", "10")
-    assert eng._resolve_packed() is True
-    assert eng.graph.packed is not None

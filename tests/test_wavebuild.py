@@ -240,7 +240,7 @@ def test_engine_store_build_store_build():
 
 
 def test_refine_pass_improves_weak_prefix():
-    """Two-pass refinement (VERDICT r4 #5, models/wavebuild.refine_index_wave):
+    """Two-pass refinement (models/wavebuild.refine_index_wave):
     re-inserting the early waves against the FINAL graph must not lose
     recall, and on a build whose early nodes saw only a tiny bootstrap it
     should recover quality (two-pass Vamana semantics; reference insert

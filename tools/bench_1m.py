@@ -1,19 +1,18 @@
-"""Million-row single-chip demonstration (the SIFT1M-shaped slot).
+"""Million-row single-device benchmark (the SIFT1M-shaped slot).
 
 Synthetic 1M x d=128 corpus (SIFT fvecs files are absent in-image — the
 loaders in data/loader.py run the real thing unchanged when they exist).
 Measures:
   * index build wall-clock (distributed one-shot builder on a 1-device
-    mesh with streamed flat_topk candidates — the million-row path),
-  * graph query pareto: recall@10 vs QPS (packed Pallas beam search),
-  * flat-scan points (bf16 and int8 fused kernels) for comparison.
+    mesh with flat_topk candidates — the million-row path),
+  * graph query pareto: recall@10 vs QPS (the XLA gather beam),
+  * flat-scan points (bf16 and int8 flat_topk) for comparison.
 
-Ground truth: exact XLA matmul top-k on 400 queries (BruteForceEngine
-mode='exact' in 1M-safe batches).
+Ground truth: exact XLA matmul top-k (BruteForceEngine mode='exact').
 
-Usage: python tools/bench_1m.py [--n 1000000] [--skip-build]
-Writes results as JSON lines; the built index is cached at
-/tmp/expann_1m_idx.npz for query-side re-runs.
+Usage: python tools/bench_1m.py [--n 1000000] [--data sift-like] [--skip-build]
+Writes results as JSON lines; the built index and ground truth are cached
+under index/ for query-side re-runs.
 """
 
 from __future__ import annotations
@@ -28,7 +27,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-GT = "/tmp/expann_1m_gt.npz"
+CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "index"
+)
 
 
 def main():
@@ -38,52 +39,40 @@ def main():
     ap.add_argument("--d", type=int, default=128)
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--skip-build", action="store_true")
-    # build + save the index npz, then exit (no GT, no serving sweeps) —
-    # for rebuilding the /tmp index caches that tools/perf_latency.py loads
+    # build + save the index npz, then exit (no GT, no serving sweeps)
     ap.add_argument("--build-only", action="store_true")
-    # M=32 (M0=64): the strongest graph whose s8 packed layout fits 16GB
-    # HBM at N=1M; efc caps at 127 (flat_topk candidate extraction k<=128)
-    ap.add_argument("--M", type=int, default=32)
-    ap.add_argument("--efc", type=int, default=127)
+    ap.add_argument("--M", type=int, default=48)
+    ap.add_argument("--efc", type=int, default=300)
     # "gaussian" = the reference's isotropic synthetic (hard at 1M —
     # curse of dimensionality); "clustered" = mixture of 1000 Gaussians
-    # modelling real-corpus intrinsic dimension (SIFT-like)
+    # modelling real-corpus intrinsic dimension; "sift-like" = the
+    # clustered corpus in SIFT's u8-valued box (data/loader.py)
     # "fvecs:<dir>" loads a real corpus from <dir>/{sift_base.fvecs,
     # sift_query.fvecs, sift_groundtruth.ivecs} (the reference's SIFT1M
     # layout, src/main.cpp:72-80) — any real fvecs corpus drops in with
     # no code change the day the files exist in-image
     ap.add_argument("--data", default="gaussian")
-    # serve an explicit index file (e.g. an adjacency-truncated variant
-    # from tools/truncate_index.py) instead of the derived cache path
+    # serve an explicit index file instead of the derived cache path
     ap.add_argument("--idx", default="")
-    # fused-path query wire: "bf16" (default) or "i8" (1 B/dim absmax
-    # codes dequantized in-trace — models/search.fused_query_batch);
-    # measured +21% e2e at 56k on a link-bound session (BENCH_NOTES)
-    ap.add_argument("--wire", default="bf16", choices=("bf16", "i8"))
-    ap.add_argument("--qb", type=int, default=8192,
-                    help="serving query_block; 16384 halves the dispatch "
-                    "count and measured +22%% at 56k (BENCH_NOTES)")
-    # override the canonical pareto sweep with specific ef points
-    # (expand=2, cand=8, i8 — the measured operating point), e.g.
-    # --ef-list 100,110 to bracket a recall gate on a saved index
-    ap.add_argument("--ef-list", default="")
+    ap.add_argument("--qb", type=int, default=8192, help="serving query_block")
+    ap.add_argument("--expand", type=int, default=1, help="query_expand")
+    ap.add_argument("--ef-list", default="40,80,128,200,256")
     ap.add_argument("--skip-flat", action="store_true")
     args = ap.parse_args()
-    if not (args.data in ("gaussian", "clustered")
+    if not (args.data in ("gaussian", "clustered", "sift-like")
             or args.data.startswith("fvecs:")):
-        ap.error("--data must be gaussian, clustered, or fvecs:<dir>")
-    global IDX, GT
+        ap.error("--data must be gaussian, clustered, sift-like or fvecs:<dir>")
     # n tag keeps non-1M runs (e.g. the 2M crossover demo) from
     # colliding with the canonical 1M cache files
     ntag = "" if args.n == 1_000_000 else f"_n{args.n}"
     dtag = ("fvecs_" + os.path.basename(args.data[6:].rstrip("/"))
             if args.data.startswith("fvecs:") else args.data)
-    IDX = args.idx or f"/tmp/expann_1m_idx_M{args.M}_{dtag}{ntag}.npz"
-    GT = f"/tmp/expann_1m_gt_{dtag}{ntag}.npz"
-
-    import jax.numpy as jnp
+    os.makedirs(CACHE, exist_ok=True)
+    IDX = args.idx or os.path.join(CACHE, f"bench_1m_idx_M{args.M}_{dtag}{ntag}.npz")
+    GT = os.path.join(CACHE, f"bench_1m_gt_{dtag}{ntag}.npz")
 
     from expann_tpu.data.loader import (
+        generate_sift_like,
         generate_synthetic,
         generate_synthetic_clustered,
     )
@@ -117,6 +106,8 @@ def main():
         print(f"generating synthetic n={n} d={d} ...", flush=True)
         if args.data == "clustered":
             x, queries = generate_synthetic_clustered(n, m, d, seed=0)
+        elif args.data == "sift-like":
+            x, queries = generate_sift_like(n, m, d, seed=7)
         else:
             x, queries = generate_synthetic(n, m, d, seed=0)
 
@@ -148,10 +139,7 @@ def main():
     results = []
 
     # ---- build: distributed one-shot on a 1-device mesh ----
-    cfg = BuildConfig(
-        M=args.M, ef_construction=args.efc, prune_cand=args.efc,
-        precision="default",
-    )
+    cfg = BuildConfig(M=args.M, ef_construction=args.efc, prune_cand=args.efc)
     built = not (args.skip_build and os.path.exists(IDX))
     if not built:
         build_s = None
@@ -178,39 +166,19 @@ def main():
                   "(build skipped)", flush=True)
         return
 
-    # ---- graph query pareto (fused traversal; ef <= 128 reuses ONE
-    # compile since ef is a runtime scalar, ef=160 compiles the 256-wide
-    # beam variant once) ----
+    # ---- graph query pareto (XLA gather beam) ----
     rng = np.random.default_rng(99)
-    # bf16 packed blocks need n*roundup(M0,16)*D_pad*2 bytes of HBM; above
-    # ~10GB only the s8 layout fits alongside the corpus on a 16GB chip
-    rs16 = 2 * args.M + ((-2 * args.M) % 16)
-    d_pad = d + ((-d) % 128)
-    bf16_fits = n * rs16 * d_pad * 2 < 10e9
-    # cand=8 vs 16 A/B at scale: the round-4 op-point re-sweep (56k)
-    # moved the default to cand=8; the 1M pairs here verify it holds
-    pts = [(2, 40, 16), (2, 80, 8), (2, 80, 16), (2, 120, 8), (2, 120, 16),
-           (2, 200, 32), (2, 256, 32)]
-    plist = [(e_, ef_, c_, "i8") for e_, ef_, c_ in pts]
-    if bf16_fits:
-        plist += [(2, 120, 16, "bf16")]
-    if args.ef_list:
-        plist = [(2, int(s), 8, "i8") for s in args.ef_list.split(",")]
-    for expand, ef, cand, pdt in plist:
+    for ef in (int(v) for v in args.ef_list.split(",")):
         acfg = AntitopoConfig(
             M=args.M, ef_construction=args.efc, ef_search=ef,
-            query_expand=expand, fused_cand=cand, packed_dtype=pdt,
-            query_block=args.qb,  # dispatch-overhead amortization
-            entry_seeds=8,  # dense multi-seed entry scan (multi-basin data)
-            precision="default", use_packed=True, query_wire=args.wire,
+            query_expand=args.expand, query_block=args.qb,
             index_filename=IDX, read_index=True,
         )
         eng = AntitopoEngine(config=acfg)
         eng.build()
         rec = recall(eng.query_k_batch(queries, k))
         dc = (eng.num_distcomps + eng.num_distcomps_compressed) / m
-        B = 32768  # per-dispatch wall overhead amortizes with batch size
-        # (tools/perf_e2e_graph.py: 42k -> 75k QPS at 56k going 8k -> 64k)
+        B = 16384
         eng.query_k_batch(rng.standard_normal((B, d)).astype(np.float32), k)
         best = 1e9
         for _ in range(3):
@@ -218,10 +186,7 @@ def main():
             t0 = time.perf_counter()
             eng.query_k_batch(qs, k)
             best = min(best, time.perf_counter() - t0)
-        wtag = "_wirei8" if args.wire == "i8" else ""
-        if args.qb != 8192:
-            wtag += f"_qb{args.qb}"
-        pt = {"point": f"antitopo_ef{ef}_e{expand}_c{cand}_{pdt}{wtag}",
+        pt = {"point": f"antitopo_ef{ef}_e{args.expand}_qb{args.qb}",
               "recall": round(rec, 4), "qps": round(B / best, 1),
               "distcomps": round(dc, 1)}
         results.append(pt)
@@ -230,10 +195,7 @@ def main():
 
     # ---- flat scans ----
     for mode in () if args.skip_flat else ("fused", "fused_i8"):
-        eng = BruteForceEngine(
-            mode=mode,
-            query_wire=args.wire if mode == "fused_i8" else "bf16",
-        )
+        eng = BruteForceEngine(mode=mode)
         eng.store_many_vectors(x)
         t0 = time.perf_counter()
         eng.build()
@@ -247,7 +209,7 @@ def main():
             t0 = time.perf_counter()
             eng.query_k_batch(qs, k)
             best = min(best, time.perf_counter() - t0)
-        pt = {"point": f"tpu_flat_{mode}", "recall": round(rec, 4),
+        pt = {"point": f"flat_{mode}", "recall": round(rec, 4),
               "qps": round(B / best, 1), "build_s": round(fb, 1)}
         results.append(pt)
         print(json.dumps(pt), flush=True)

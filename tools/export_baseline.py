@@ -10,7 +10,7 @@ framework built — as a single-core C++ program on this host's CPU.
 
 Usage:
   python tools/export_baseline.py \
-      --index /tmp/perf_fused_idx_56000.npz --out /tmp/baseline_56k.bin
+      --index index/idx_56000.npz --out index/baseline_56k.bin
 
 Blob layout (little-endian):
   int32 magic 0x45584142, n, d, r0, num_layers, starting_vertex, m, k
@@ -39,11 +39,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--index", default="/tmp/perf_fused_idx_56000.npz")
+    ap.add_argument("--index", required=True)
     ap.add_argument("--dataset",
                     default="data/synthetic_uniform_sphere_"
                             "n56000_dim128_m400_k10.dataset")
-    ap.add_argument("--out", default="/tmp/baseline_56k.bin")
+    ap.add_argument("--out", default="index/baseline_56k.bin")
     args = ap.parse_args()
 
     z = np.load(args.index)

@@ -7,7 +7,7 @@ Same blob format as tools/export_baseline.py with r0 = 0 and num_layers = 0.
 Usage:
   python tools/export_baseline_raw.py \
       --dataset data/synthetic_uniform_sphere_n56000_dim128_m400_k10.dataset \
-      --out /tmp/baseline_raw_56k.bin
+      --out index/baseline_raw_56k.bin
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ def main():
         "--dataset",
         default="data/synthetic_uniform_sphere_n56000_dim128_m400_k10.dataset",
     )
-    ap.add_argument("--out", default="/tmp/baseline_raw_56k.bin")
+    ap.add_argument("--out", default="index/baseline_raw_56k.bin")
     args = ap.parse_args()
 
     with open(args.dataset) as f:

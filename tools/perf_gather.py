@@ -2,9 +2,9 @@
 matmul distance, across storage dtypes.  Decides the serving data path:
 
   * f32    — gather materializes (B,R,D) f32
-  * bf16   — half the gather bytes, MXU-native bf16 x bf16 -> f32
+  * bf16   — half the gather bytes, bf16 x bf16 -> f32 on the tensor cores
   * u8->f32 — quarter gather bytes but XLA inserts a big f32 convert
-  * i8     — centered int8 codes fed straight to the int8 MXU path
+  * i8     — centered int8 codes fed straight to the int8 matmul path
              (s8 x s8 -> s32), no float convert (exact integer distances)
 
 Usage: python tools/perf_gather.py [--n 1000000] [--b 4096] [--r 128]

@@ -1,4 +1,4 @@
-"""Query-path perf sweep on the real TPU.
+"""Query-path perf sweep on the accelerator.
 
 Builds (or loads) a synthetic index and sweeps query batch size, beam
 expansion factor, and compressed mode, reporting QPS and recall for each

@@ -1,15 +1,15 @@
 """Apply the two-pass refinement to a saved index and save the result.
 
-VERDICT r4 #5 instrument: the wave builder's early nodes only ever saw a
-small prefix (the measured cause of the 1M recall plateau);
+The wave builder's early nodes only ever saw a small prefix of the
+corpus;
 `models/wavebuild.refine_index_wave` re-runs their insert search against
 the FINAL graph.  This tool refines a saved index npz so the A/B is two
 `tools/bench_1m.py --skip-build --idx <file>` serving runs over the same
 corpus and ground truth.
 
 Usage:
-  python tools/refine_1m.py --idx /tmp/expann_1m_idx_M48_clustered.npz \
-      --out /tmp/expann_1m_idx_M48_clustered_refined.npz \
+  python tools/refine_1m.py --idx index/bench_1m_idx_M48_clustered.npz \
+      --out index/bench_1m_idx_M48_clustered_refined.npz \
       --M 48 --efc 300 [--frac 0.5] [--wave 4096]
 """
 

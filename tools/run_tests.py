@@ -14,7 +14,7 @@ crashes are.
 
 Usage:
   python tools/run_tests.py            # whole suite, per-file isolation
-  python tools/run_tests.py tests/test_fused.py ...   # subset
+  python tools/run_tests.py tests/test_flat_topk.py ...   # subset
 
 Exit code: 0 iff every file ends green (possibly after one crash retry).
 
@@ -31,6 +31,7 @@ import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,7 +60,7 @@ def main() -> int:
     )
 
     selftest_file = os.path.join(REPO, "tests", "test_selftest_crash.py")
-    selftest_marker = "/tmp/expann_selftest_crash_marker"
+    selftest_marker = os.path.join(tempfile.gettempdir(), "expann_selftest_crash_marker")
     if args.selftest:
         with open(selftest_file, "w") as f:
             f.write(
